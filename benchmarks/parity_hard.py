@@ -3,8 +3,8 @@
 native C++ twin, on pose sets and budgets where success SEPARATES.
 
 The round-4 anchor study (parity_scipy.py) tied 100.0% vs 100.0% on easy-
-budget uniform poses — a tie at saturation discriminates nothing (VERDICT
-r4 item 5).  This study measures the tail the reference's published
+budget uniform poses — a tie at saturation discriminates nothing.  This
+study measures the tail the reference's published
 comparison is actually about (README.md:22-36):
 
   pose sets
@@ -89,10 +89,9 @@ def main():
 
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        str(pathlib.Path(__file__).resolve().parent.parent / ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+    from optik_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import jax.numpy as jnp
     from scipy.optimize import minimize

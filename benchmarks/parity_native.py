@@ -1,23 +1,23 @@
 #!/usr/bin/env python3
-"""Success-rate parity: the TPU batch solver vs the native CPU solver on an
-IDENTICAL reachable-pose set.
+"""Success-rate parity: the device batch solver vs the native CPU solver on
+an IDENTICAL reachable-pose set.
 
-The round-1 verdict flagged the bench's 99.9x% success rate as unexplained:
-is the residual a set of genuinely hard poses (the reference-style solver
-fails them too) or a lockstep-LM convergence loss?  This harness answers it
-the way the reference measures itself (examples/example.py:19-47): random
-reachable Panda targets, random seeds, default tolerance — solved twice:
+Is the batch solver's residual failure rate a set of genuinely hard poses
+(the reference-style solver fails them too) or a lockstep-LM convergence
+loss?  This harness answers it the way the reference measures itself
+(examples/example.py:19-47): random reachable Panda targets, random seeds,
+default tolerance — solved twice:
 
-  * TPU path: the production cascade (bench.py's solver) in one process;
+  * device path: the public ``Robot.ik_batch`` (bench.py's solver);
   * native path: optik_host.cpp's reference-style single solves (damped GN
     with random restarts) on the CPU, same restart/iteration budget.
 
 Prints one JSON line with both success rates and the failure overlap:
-``both_fail`` poses are evidence of genuinely hard poses; ``tpu_only_fail``
-is the TPU path's true convergence loss vs a reference-style solver.
+``both_fail`` poses are evidence of genuinely hard poses;
+``device_only_fail`` is the device path's true convergence loss vs a
+reference-style solver.
 
-Run on the TPU host: ``python benchmarks/parity_native.py [N_BATCHES]``.
-Results are recorded in PARITY.md.
+    python benchmarks/parity_native.py [N_BATCHES]
 """
 
 import json
@@ -32,18 +32,14 @@ import numpy as np
 
 def main():
     import jax
-
-    import pathlib as _pl
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        str(_pl.Path(__file__).resolve().parent.parent / ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-
     import jax.numpy as jnp
 
     from optik_tpu import Robot, SolverConfig
     from optik_tpu.models import asset_path
     from optik_tpu.native.host import HostChain
+    from optik_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
 
     n_batches = int(sys.argv[1]) if len(sys.argv) > 1 else 6
     B = 16384
@@ -59,26 +55,17 @@ def main():
     q_tgt = rng.uniform(lo, hi, size=(N, 7))
     x0 = rng.uniform(lo, hi, size=(N, 7))
 
-    # --- TPU path: the production cascade, batch by batch ---------------
-    try:
-        from optik_tpu.solver import cascade
-
-        solve = cascade.build_cascade_solver(robot.spec, cfg, p_blk=512,
-                                             phase1_rounds=1, tail_div=8,
-                                             p_blk2=256)
-        path = "pallas-cascade"
-    except Exception:
-        solve = robot._solver(cfg)
-        path = "xla"
-
-    tpu_found = np.zeros(N, dtype=bool)
+    # --- device path: the public ik_batch, batch by batch ----------------
+    dev_found = np.zeros(N, dtype=bool)
     t0 = time.perf_counter()
     for i in range(n_batches):
         sl = slice(i * B, (i + 1) * B)
         tr, tt = robot.fk_batch(q_tgt[sl])
-        res = solve(tr, tt, jnp.asarray(x0[sl], jnp.float32))
-        tpu_found[sl] = np.asarray(res.found)
-    t_tpu = time.perf_counter() - t0
+        res = robot.ik_batch(cfg, tr, tt, jnp.asarray(x0[sl], jnp.float32))
+        dev_found[sl] = np.asarray(res.found)
+    t_dev = time.perf_counter() - t0
+    path = robot._route(cfg)
+    d0 = jax.devices()[0]
 
     # --- native path: reference-style single solves on CPU --------------
     chain = HostChain.from_urdf_file(asset_path("panda.urdf"), "panda_link0",
@@ -92,20 +79,21 @@ def main():
         native_found[i] = r is not None
     t_native = time.perf_counter() - t0
 
-    both_fail = int(np.sum(~tpu_found & ~native_found))
-    tpu_only = int(np.sum(~tpu_found & native_found))
-    native_only = int(np.sum(tpu_found & ~native_found))
+    both_fail = int(np.sum(~dev_found & ~native_found))
+    dev_only = int(np.sum(~dev_found & native_found))
+    native_only = int(np.sum(dev_found & ~native_found))
 
     print(json.dumps({
         "metric": "panda_success_parity",
         "n_poses": N,
-        "tpu_success_rate": round(float(tpu_found.mean()), 5),
+        "device_success_rate": round(float(dev_found.mean()), 5),
         "native_success_rate": round(float(native_found.mean()), 5),
         "both_fail": both_fail,
-        "tpu_only_fail": tpu_only,
+        "device_only_fail": dev_only,
         "native_only_fail": native_only,
-        "tpu_solver": path,
-        "tpu_wall_s": round(t_tpu, 1),
+        "device_solver": "ik_batch/" + path,
+        "device": f"{d0.platform}:{d0.device_kind}",
+        "device_wall_s": round(t_dev, 1),
         "native_wall_s": round(t_native, 1),
         "budget": {"max_restarts": cfg.total_restarts,
                    "seed_batch": cfg.seed_batch,

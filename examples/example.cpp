@@ -5,7 +5,7 @@
 // a random *reachable* target (FK of a random configuration), solve IK, and
 // report the average solve time and success rate.  This drives the host
 // (latency) runtime — single solves with no batch device round-trip; the
-// batched TPU path lives in the Python API.
+// batched GPU path lives in the Python API.
 //
 // Build (see optik_tpu/native/CMakeLists.txt):
 //   cmake -S optik_tpu/native -B build -G Ninja && cmake --build build

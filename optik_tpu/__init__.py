@@ -1,4 +1,4 @@
-"""optik_tpu — a TPU-native inverse-kinematics and differential-IK engine.
+"""optik_tpu — a batched inverse-kinematics and differential-IK engine.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of kylc/optik:
 serial-chain SE(3) forward kinematics with an analytic geometric Jacobian, a
@@ -10,7 +10,7 @@ Where the reference parallelizes with a rayon work-stealing thread pool around
 NLopt/SLSQP, this engine turns restarts and pose queries into batch axes:
 thousands of seeds advance in lockstep through a fixed-iteration projected
 Levenberg-Marquardt solver, and winners are chosen with argmin reductions that
-shard over a TPU device mesh.
+shard over a device mesh.
 """
 
 from .config import SolutionMode, SolverConfig

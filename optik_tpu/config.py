@@ -1,7 +1,7 @@
 """Solver configuration.
 
 Mirrors the reference's ``SolverConfig`` (kylc/optik crates/optik/src/config.rs:22-65)
-with the TPU-native replacements for its wall-clock knobs:
+with batch-device replacements for its wall-clock knobs:
 
   * ``max_time`` (reference default 0.1 s) has no deterministic meaning on a
     batch device; it is accepted for API compatibility but the actual budget
@@ -95,7 +95,7 @@ class SolverConfig:
     linear_weight: Tuple[float, float, float] = (1.0, 1.0, 1.0)
     angular_weight: Tuple[float, float, float] = (1.0, 1.0, 1.0)
 
-    # --- TPU-native extensions -------------------------------------------
+    # --- batch-solver extensions ----------------------------------------
     # Maximum Levenberg-Marquardt iterations per restart (the reference's
     # implicit budget was wall-clock time inside SLSQP).
     max_iters: int = 64
@@ -112,13 +112,7 @@ class SolverConfig:
     # (lib.rs:398-408 always consumes the whole budget).  The reference has
     # no analog; this trades a bounded amount of solution quality (best-of-k
     # vs best-of-all) for early pose freezing.
-    # MEASURED NEGATIVE on v5e (artifacts/workloads_r03.out, BASELINE
-    # config 2: 1k poses x 256 seeds): cap=8 -> 0.82x, cap=2 -> 0.77x of
-    # the uncapped 26.8k solves/s, with mean seed-distance regression
-    # 0.29/0.82 rad.  The per-iteration group success reduction costs more
-    # than tile-granularity freezing saves (a block only exits when every
-    # pose in the 128-wide tile caps out).  Kept for callers who want the
-    # bounded-quality semantics; not a throughput win on this hardware.
+    # Its throughput effect on the GPU kernel is not measured.
     quality_max_successes: int = 0
     # Hard cap on unlimited-restart rounds (max_restarts=0): at most
     # cap * DEFAULT_RESTARTS restarts per pose.  The reference's analog

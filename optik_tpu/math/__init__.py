@@ -1,4 +1,4 @@
-"""Lie-group math (SO(3)/SE(3)) for the TPU-native IK engine."""
+"""Lie-group math (SO(3)/SE(3)) for the batched IK engine."""
 
 from . import se3, so3
 

@@ -1,11 +1,11 @@
 """Unrolled small-matrix linear algebra for batched lanes.
 
 XLA's generic ``lax.linalg.cholesky`` / ``triangular_solve`` lower to
-loop-based kernels that serialize terribly for tiny matrices on TPU.  The LM
-step only ever solves a 6x6 SPD system per lane, so the factorization and
-both substitutions are fully unrolled here into scalar jnp ops on (...,)
-slices — pure VPU element-wise work that vectorizes perfectly across lanes,
-with no data-dependent control flow.
+loop-based kernels that serialize for tiny matrices.  The LM step only ever
+solves a 6x6 SPD system per lane, so the factorization and both
+substitutions are fully unrolled here into scalar jnp ops on (...,) slices
+— pure element-wise work that vectorizes across lanes, with no
+data-dependent control flow.
 """
 
 from __future__ import annotations

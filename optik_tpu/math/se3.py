@@ -1,4 +1,4 @@
-"""SE(3) Lie-group math, batched and branchless for TPU.
+"""SE(3) Lie-group math, batched and branchless.
 
 The core of the IK objective: the SE(3) logarithmic map (giving the 6-vector
 pose error) and its right Jacobian (giving the analytic gradient's chain-rule

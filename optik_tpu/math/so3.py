@@ -1,11 +1,11 @@
-"""SO(3) Lie-group math, batched and branchless for TPU.
+"""SO(3) Lie-group math, batched and branchless.
 
 Provides the rotation-group primitives the IK objective and its analytic
 gradient are built on: the hat operators, the logarithmic map (from either a
 quaternion or a rotation matrix), the right Jacobian of the log map, and the
 Rodrigues exponential used by revolute joints.
 
-Design notes (TPU-first):
+Design notes (batch-first):
   * Every function accepts arbitrary leading batch dimensions and is pure, so
     it composes with ``jax.vmap`` / ``jax.jit`` with no shape polymorphism.
   * All singularity handling is *branchless*: both the exact trigonometric

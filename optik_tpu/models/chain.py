@@ -1,4 +1,4 @@
-"""ChainSpec: the static, array-form kinematic chain the TPU kernels consume.
+"""ChainSpec: the static, array-form kinematic chain the solvers consume.
 
 The reference keeps a ``Vec<Joint>`` and scans it at runtime
 (kinematics.rs:8-164).  Here the chain is preprocessed once, host-side, into

@@ -1,6 +1,6 @@
 // optik_host: native host-side kinematics + single-solve IK runtime.
 //
-// Role in the framework: the TPU path (JAX/XLA) is the throughput engine;
+// Role in the framework: the device path (JAX/XLA) is the throughput engine;
 // this C++ library is the *latency* engine for single queries, where a
 // device round-trip (~100us+) would dominate the solve itself, and the
 // native counterpart of the reference's C ABI / C++ layer

@@ -1,6 +1,6 @@
 """Batched forward kinematics and geometric Jacobian.
 
-TPU-native rework of the reference's runtime kinematics
+Batched rework of the reference's runtime kinematics
 (kylc/optik crates/optik/src/kinematics.rs:116-196):
 
   * the joint scan (kinematics.rs:142-158) becomes a ``lax.scan`` over the

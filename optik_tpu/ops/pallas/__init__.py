@@ -1,1 +1,1 @@
-"""Pallas TPU kernels: the whole LM solve resident in VMEM."""
+"""Pallas kernels (Triton route): the whole LM solve in one kernel."""

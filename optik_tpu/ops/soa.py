@@ -1,17 +1,17 @@
 """Structure-of-arrays (SoA) compute path: all math as scalar components.
 
 Why this exists: the natural (L, 3, 3)/(L, 6, 6) array-of-structures layout
-puts tiny 3/6-sized dimensions in the TPU tile minor positions, so every
-3x3 matrix pads to an (8, 128) vector tile — ~40x wasted VPU work (measured:
-the fused residual+Jacobian ran at ~5 GFLOP/s, see
-benchmarks/profile_parts.py).  Here every small matrix and vector is a
+puts tiny 3/6-sized dimensions in the minor positions of every array, so
+the compiler sees small matrix products and strided component access
+instead of independent lanes.  Here every small matrix and vector is a
 Python list whose entries are (L,)-shaped arrays (or plain Python floats for
 static chain constants, which XLA constant-folds), so the *lane* dimension is
-the only array axis: XLA sees nothing but element-wise ops on (L,) vectors,
-tiles them perfectly, and fuses the whole pipeline.
+the only array axis: XLA sees nothing but element-wise ops on (L,) vectors
+and fuses the whole pipeline.
 
 These functions are pure Python over anything that supports jnp arithmetic,
-so the *same code* later runs inside a Pallas kernel body on VMEM blocks.
+so the *same code* also runs inside the Pallas kernel body on one block of
+lanes (ops/pallas/lm_kernel.py).
 
 All formulas mirror optik_tpu.math.so3/se3 (which carry the reference
 citations); equivalence with the array path is pinned by tests/test_soa.py.
@@ -30,103 +30,16 @@ from ..math.so3 import EPSILON
 Mat = List[List]
 Vec = List
 
-# Kernel math mode: Mosaic (Pallas TPU) has no atan2 primitive, so kernels
-# switch to a branchless Cephes-style polynomial (f32-accurate, ~1e-7), and
-# sin/cos of joint angles to a shared-range-reduction polynomial pair
-# (:func:`sincos` — one reduction for both, vs two full libm-style
-# expansions).  Everywhere else the exact jnp primitives are used (f64
-# golden tests).
-_APPROX_ATAN2 = False
-_FAST_TRIG = False
-
-
-class approx_atan2:
-    """Context manager: trace kernel math (atan2 + sincos polynomials)."""
-
-    def __enter__(self):
-        global _APPROX_ATAN2, _FAST_TRIG
-        self._prev = (_APPROX_ATAN2, _FAST_TRIG)
-        _APPROX_ATAN2 = True
-        _FAST_TRIG = True
-
-    def __exit__(self, *exc):
-        global _APPROX_ATAN2, _FAST_TRIG
-        _APPROX_ATAN2, _FAST_TRIG = self._prev
-
-
-def _atan_nonneg(t):
-    """atan(t) for t >= 0, branchless (Cephes atanf range reduction +
-    degree-4 polynomial in t^2; public-domain constants)."""
-    big = t > 2.414213562373095    # tan(3*pi/8)
-    mid = (t > 0.4142135623730950) & ~big  # tan(pi/8)
-    x = jnp.where(big, -1.0 / jnp.maximum(t, 1e-30),
-                  jnp.where(mid, (t - 1.0) / (t + 1.0), t))
-    y0 = jnp.where(big, jnp.pi / 2, jnp.where(mid, jnp.pi / 4, 0.0))
-    z = x * x
-    p = ((8.05374449538e-2 * z - 1.38776856032e-1) * z
-         + 1.99777106478e-1) * z - 3.33329491539e-1
-    return y0 + p * z * x + x
-
-
-def atan2_nonneg(y, x):
-    """atan2(y, x) restricted to y >= 0 (quadrants I/II), kernel-safe."""
-    if not _APPROX_ATAN2:
-        return jnp.arctan2(y, x)
-    r = _atan_nonneg(y / jnp.maximum(jnp.abs(x), 1e-30))
-    return jnp.where(x < 0, jnp.pi - r, r)
-
-
-# Cody-Waite pi/2 split (2x the public-domain Cephes sinf DP1/DP2/DP3
-# constants): k * _PIO2_A is exact for the k magnitudes joint angles reach,
-# so the reduced argument keeps full f32 precision.
-_PIO2_A = 1.5703125
-_PIO2_B = 4.837512969970703e-4
-_PIO2_C = 7.549789948768648e-8
-
-
-def sincos(x):
-    """(sin x, cos x) with ONE shared range reduction in kernel math mode.
-
-    Outside kernel math mode this is exact jnp.sin/jnp.cos.  In kernels the
-    pair shares a single mod-pi/2 Cody-Waite reduction and evaluates the
-    two Cephes f32 minimax polynomials (~1e-7 abs error for |x| up to
-    ~1e4; joint angles are box-projected to their limits every step, so in
-    practice |x| < 4pi).  One reduction + 2 short polynomials replaces two
-    independent libm-style expansions — sin/cos of the revolute joints are
-    the largest single transcendental cost of the LM iteration (7 of the
-    ~15 remaining per lane-iter on the Panda).
-    """
-    if not _FAST_TRIG:
-        return jnp.sin(x), jnp.cos(x)
-    k = jnp.floor(x * (2.0 / jnp.pi) + 0.5)
-    r = x - k * _PIO2_A
-    r = r - k * _PIO2_B
-    r = r - k * _PIO2_C
-    z = r * r
-    sp = r + r * z * (-1.6666654611e-1
-                      + z * (8.3321608736e-3 + z * (-1.9515295891e-4)))
-    cp = 1.0 - 0.5 * z + z * z * (
-        4.166664568298827e-2
-        + z * (-1.388731625493765e-3 + z * 2.443315711809948e-5))
-    j = k - 4.0 * jnp.floor(k * 0.25)  # k mod 4, as floats (Mosaic-friendly)
-    swap = (j == 1.0) | (j == 3.0)
-    s_abs = jnp.where(swap, cp, sp)
-    c_abs = jnp.where(swap, sp, cp)
-    s = jnp.where((j == 2.0) | (j == 3.0), -s_abs, s_abs)
-    c = jnp.where((j == 1.0) | (j == 2.0), -c_abs, c_abs)
-    return s, c
-
-
 # --- generic small linear algebra (unrolled at trace time) -----------------
 #
 # Static-sparsity-aware scalar ops: chain constants (joint origins, axes)
 # are plain Python floats, and for real robots most are exact 0/1 (Panda's
 # axes are all axis-aligned, origin rotations are signed permutations).
 # The XLA path would fold x*0 and x+0 in its algebraic simplifier, but the
-# Pallas kernel lowers the jaxpr to Mosaic DIRECTLY — no XLA optimization
-# pass ever sees it — so skipping dead terms at trace time is the only way
-# they stay out of the kernel (measured: ~27% of the LM body's ops were
-# static-zero products).  `0.0` results stay Python floats so the
+# Pallas kernel lowers the jaxpr to Triton directly — no XLA optimization
+# pass ever sees it — so skipping dead terms at trace time keeps them out
+# of the kernel (about a quarter of the LM body's ops are static-zero
+# products on the Panda).  `0.0` results stay Python floats so the
 # sparsity propagates through the FK composition chain.
 #
 # NOTE: the static folds are not IEEE-faithful for non-finite traced
@@ -226,7 +139,7 @@ def cholesky_solve(a: Mat, b: Vec) -> Vec:
         s = a[j][j]
         for k in range(j):
             s = s - l[j][k] * l[j][k]
-        # rsqrt is a single VPU approximation+refine op vs sqrt-then-divide.
+        # rsqrt: one reciprocal-root op instead of sqrt-then-divide.
         inv_d = jax.lax.rsqrt(jnp.maximum(s, 1e-30))
         l[j][j] = inv_d
         for i in range(j + 1, n):
@@ -259,7 +172,7 @@ def rodrigues(axis: Vec, angle) -> Mat:
     robots overwhelmingly use, six of the nine entries are static and the
     matrix reduces to the classic 2-D rotation block at trace time.
     """
-    s, c = sincos(angle)
+    s, c = jnp.sin(angle), jnp.cos(angle)
     c1 = 1.0 - c
     kx, ky, kz = axis
 
@@ -316,7 +229,7 @@ def quat_log(q: Vec) -> Vec:
     small = v2 <= EPSILON
     v2s = jnp.where(small, 1.0, v2)
     vn = jnp.sqrt(v2s)
-    exact = atan2_nonneg(vn, w) / vn
+    exact = jnp.arctan2(vn, w) / vn
     w3 = w * w * w
     taylor = 1.0 / w - v2 / (3.0 * w3) + (v2 * v2) / (5.0 * w3 * w * w)
     t = 2.0 * jnp.where(small, taylor, exact)
@@ -401,7 +314,7 @@ def rot_log_terms(r: Mat):
     v2 = x * x + y * y + z * z
     n2 = v2 + w * w
     vn = jnp.sqrt(v2)
-    half = atan2_nonneg(vn, w)     # theta/2, scale-free, in [0, pi/2]
+    half = jnp.arctan2(vn, w)      # theta/2, scale-free, in [0, pi/2]
     theta = 2.0 * half
     small = v2 <= EPSILON * n2     # == normalized v2 <= EPSILON
     # t = theta / vn (scale cancels); Taylor in v2/w^2 near the zero
@@ -421,8 +334,7 @@ def _trig_from_w(w: Vec):
     """(theta, theta2, sin, cos) for a rotation vector (legacy entry)."""
     theta2 = vec_dot(w, w)
     theta = jnp.sqrt(theta2)
-    s, c = sincos(theta)
-    return theta, theta2, s, c
+    return theta, theta2, jnp.sin(theta), jnp.cos(theta)
 
 
 def _hat_coeffs_trig(trig):

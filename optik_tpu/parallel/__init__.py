@@ -1,1 +1,1 @@
-"""Mesh/sharding utilities (multi-chip IK)."""
+"""Mesh/sharding utilities (multi-device IK)."""

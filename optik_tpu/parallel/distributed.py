@@ -1,11 +1,11 @@
 """Multi-host runtime helpers.
 
-The engine itself is topology-agnostic: `ik_sharded` takes any mesh.  On a
-multi-host pod slice the only extra step is initializing the JAX distributed
+The engine itself is topology-agnostic: `ik_sharded` takes any mesh.  On
+several hosts the only extra step is initializing the JAX distributed
 runtime and building a mesh whose "data" axis spans hosts (pose shards never
-communicate; DCN only carries the initial scatter/final gather) while the
-"seed" axis stays within a host's chips (the argmin-reduce collective rides
-ICI).  This module wraps that recipe.
+communicate; the network only carries the initial scatter/final gather)
+while the "seed" axis stays within a host's cards (the argmin-reduce
+collective runs over NCCL on NVLink).  This module wraps that recipe.
 
 The reference has no distributed story at all (single process, rayon pool —
 SURVEY.md §2); this is the scale-out path replacing it.
@@ -25,9 +25,9 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> None:
     """Bring up the JAX distributed runtime (idempotent).
 
-    On TPU pods with standard environment variables all arguments may be
-    None (jax.distributed auto-detects); arguments are passed through for
-    manual CPU/GPU cluster bring-up.
+    Where a cluster environment is detected all arguments may be None
+    (jax.distributed auto-detects); otherwise pass the coordinator address
+    (``host:port``), the process count and this process's id.
     """
     try:
         jax.distributed.initialize(
@@ -40,8 +40,8 @@ def initialize(coordinator_address: Optional[str] = None,
 
 
 def pod_mesh(seed_per_host: int = 1):
-    """A (data, seed) mesh for the full pod: data spans hosts, seed stays
-    within each host's local chips.
+    """A (data, seed) mesh over every host: data spans hosts, seed stays
+    within each host's local cards.
 
     ``seed_per_host`` local devices per host are assigned to the seed axis;
     the rest extend the data axis.

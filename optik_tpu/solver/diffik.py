@@ -13,8 +13,8 @@ ray {alpha * V} through the zonotope J_W([-v_max, v_max]), computed in
 closed form by enumerating C(n, 5) facet-normal cuts — a fixed, unrolled,
 SoA-element-wise computation with no iterations at all.  FK, the world
 Jacobian, and the solve trace into ONE jitted program on the SoA layout
-(ops/soa.py), the same representation that took IK to the VPU
-speed-of-light; the round-3 ADMM formulation (solver/qp.py) remains as the
+(ops/soa.py), the same representation the IK hot path uses; the ADMM
+formulation (solver/qp.py) remains as the
 fallback for joint counts outside the exact path's range and as an
 independent test oracle.
 

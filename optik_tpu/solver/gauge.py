@@ -6,10 +6,9 @@ The reference solves diff-IK as a Clarabel conic LP per call
     max_{v, alpha} alpha
       s.t.  J_W(q) v = alpha * V,   |v_i| <= vmax_i,   0 <= alpha <= 1.
 
-Round-3 replaced Clarabel with a batched 800-iteration ADMM (solver/qp.py)
-— correct, but CPU-class on TPU (~24k steps/s: tiny (n+7)-dim AoS matrices
-hit the tile-padding pathology ops/soa.py documents).  This module replaces
-the *algorithm* instead of the backend, exploiting the LP's geometry:
+The batched 800-iteration ADMM (solver/qp.py) solves it iteratively on
+tiny (n+7)-dim array-of-structures matrices; this module replaces the
+*algorithm* instead, exploiting the LP's geometry:
 
 The image of the velocity box under J_W is a **zonotope**
 Z = { sum_i u_i * g_i : |u_i| <= 1 } with generators g_i = vmax_i * J_i.
@@ -30,10 +29,10 @@ scaling by alpha / t* maps the facet point to the solution (the box is
 symmetric and star-shaped, so the scaled point stays feasible).
 
 Layout: the subset axis is an ARRAY dimension — all per-facet math runs on
-(C, lanes)-shaped arrays written once, not C unrolled copies (an earlier
-fully-unrolled form measured pathological XLA compile times beyond ~21
-subsets: >9 min for C(8,5)=56 — the optimizer choked on the repeated
-Gram-Schmidt dependency chains).  Small vector components (the 6 spatial
+(C, lanes)-shaped arrays written once, not C unrolled copies (an
+unrolled form repeats the Gram-Schmidt dependency chains C times, and its
+XLA compile time grew out of hand beyond ~21 subsets on an earlier
+accelerator; not measured on the GPU).  Small vector components (the 6 spatial
 dims, the 5 subset positions) stay Python lists in the SoA style of
 ops/soa.py; everything is element-wise over (C, lanes) or (lanes,), with
 one tiny one-hot contraction selecting the winning facet.  Zero

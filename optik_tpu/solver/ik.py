@@ -51,11 +51,10 @@ class IKResult(NamedTuple):
     lane_iters: Optional[jnp.ndarray] = None
     # Scalar count of found poses, computed INSIDE the solve program when
     # available (cascade path).  Callers chaining many batches fetch/reduce
-    # this instead of dispatching a separate sum per batch — on a relayed
-    # device every extra execution costs ~2 ms of queue overhead.  None
+    # this instead of dispatching a separate sum per batch.  None
     # when the solve didn't compute it (or padding invalidated it).
     found_count: Optional[jnp.ndarray] = None
-    # Per-pose winner-selection key for cross-chip merging (seed-sharded
+    # Per-pose winner-selection key for cross-device merging (seed-sharded
     # path, parallel/mesh.build_seed_sharded_solver): Speed mode = the
     # winning restart index (int32; INT32_MAX when not found), Quality mode
     # = the winning seed distance (dtype; +inf when not found).  None when
@@ -274,7 +273,7 @@ def ik_batch(params: K.ChainParams, cfg: SolverConfig,
     """Solve B poses x S restarts as one flat lane batch of B*S.
 
     The flat layout (no nested vmap-of-while) keeps every lane in the same
-    lockstep loop — the TPU-native replacement for "thread pool x restart
+    lockstep loop — the batch-device replacement for "thread pool x restart
     stream".  Selection happens per pose after reshaping back to (B, S).
     """
     b = tgt_r.shape[0]

@@ -5,7 +5,7 @@ Nielsen damping, same success classification — see that module for the
 reference mapping); the differences are representational and structural:
 
   * all small-matrix math is unrolled into per-component element-wise ops on
-    lane-shaped arrays (see ops/soa.py for why this matters on TPU);
+    lane-shaped arrays (see ops/soa.py);
   * exactly ONE fused residual+Jacobian evaluation per loop iteration — and
     none outside the loop.  The first iteration of every attempt (including
     the very first, and every reseed) is an "adopt" step: the lane evaluates
@@ -25,10 +25,10 @@ reference mapping); the differences are representational and structural:
 
 The loop core (:func:`lm_loop`) operates purely on *component lists* of
 lane-shaped arrays, so the exact same code runs under jit on sliced HBM
-arrays (this module's :func:`solve_soa`) and inside a Pallas kernel on VMEM
-blocks.  Lane axes can be any shape — (L,), (B, S), (S, P) — every op is
-element-wise over them; the seed-group axis for Speed-mode pose freezing is
-a parameter.
+arrays (this module's :func:`solve_soa`) and inside the Pallas kernel on
+one block of lanes held in registers (ops/pallas/lm_kernel.py).  Lane axes
+can be any shape — (L,), (B, S), (P, S) — every op is element-wise over
+them; the seed-group axis for Speed-mode pose freezing is the last one.
 """
 
 from __future__ import annotations
@@ -37,16 +37,9 @@ from typing import NamedTuple, Optional
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from ..ops import soa
 from .lm import LMOptions, LMResult
-
-# Pose-packed group-"any" lowering: "matmul" (block-diagonal dot) or
-# "slices" (static sublane slices).  Module-level so on-chip experiments can
-# A/B them; the default is the measured winner.
-GROUP_ANY = "matmul"
-
 
 class LoopOut(NamedTuple):
     """lm_loop result: component lists over the lane shape."""
@@ -60,11 +53,6 @@ class LoopOut(NamedTuple):
     # the lane never succeeded) — the iterations-to-converge observability
     # signal surfaced through IKResult.iters.
     succ_iters: Optional[jnp.ndarray] = None
-    # Per-lane iterations executed before the lane stopped (its restart
-    # chain's total useful length) — the schedule-efficiency probe behind
-    # the Quality-mode roofline analysis (benchmarks/exp_r05_qprobe.py).
-    # Only tracked when lm_loop(track_active=True); None otherwise.
-    active_iters: Optional[jnp.ndarray] = None
 
 
 def lm_loop(consts, lower, upper, opts: LMOptions,
@@ -74,14 +62,10 @@ def lm_loop(consts, lower, upper, opts: LMOptions,
             total_restarts: int = 0,
             s_lanes: int = 1,       # lanes per pose (stride)
             success_stops_group: bool = False,
-            group_axis: int = -1,
-            group_size: Optional[int] = None,  # rows per pose along axis 0
             explore_full_budget: bool = False,
             qx0=None,               # A components: caller's seed (quality)
             group_success_cap: Optional[int] = None,
-            unroll: int = 1,
-            track_active: bool = False
-            ) -> LoopOut:
+            unroll: int = 1) -> LoopOut:
     """The lockstep LM loop on component lists (see module docstring).
 
     ``group_success_cap`` (Quality mode only, config.quality_max_successes):
@@ -95,17 +79,17 @@ def lm_loop(consts, lower, upper, opts: LMOptions,
     iteration.  The schedule semantics are identical for any value —
     stopped lanes hold their state through selects and all per-lane
     budget checks live inside the body — but the loop condition (a
-    cross-lane all-reduce + scalar branch, which Mosaic serializes
-    against the vector pipeline) is paid ``unroll``x less often.  Costs:
-    up to ``unroll - 1`` no-op trailing iterations per block (still
-    counted in ``iters``: genuinely executed VPU work), and results may
+    cross-lane all-reduce + scalar branch) is paid ``unroll``x less
+    often.  Costs: up to ``unroll - 1`` no-op trailing iterations per
+    block (still counted in ``iters``: genuinely executed work), and
+    results may
     differ from ``unroll=1`` by float rounding (the compiler contracts
     the unrolled body differently), like any recompilation would.
     Determinism holds per compiled program, which is what the contract
     promises.  Bound: the reported ``iters`` can exceed
     ``(max_iters + 1) * rounds`` by at most ``unroll - 1`` trailing
-    applications (genuinely executed no-op VPU work; default unroll=1
-    makes this exact).
+    applications (genuinely executed no-op work; default unroll=1 makes
+    this exact).
     """
     a = len(xs0)
     lane_shape = jnp.broadcast_shapes(*[jnp.shape(x) for x in xs0])
@@ -129,26 +113,13 @@ def lm_loop(consts, lower, upper, opts: LMOptions,
     jt0 = (zeros,) * (6 * a)
     f0 = jnp.full(lane_shape, jnp.inf, dtype)
 
-    # Integer lane-shaped carries must NOT be constant zeros/ones: Mosaic
-    # assigns constants a replicated vector layout, the loop body produces
-    # tiled selects, and a tiled->replicated relayout on the carry is
-    # invalid ("Non-singleton logical dimension is replicated in destination
-    # but not in source").  An iota-derived zero is value-identical but
-    # provably tiled.
-    if lane_shape:
-        ramp = sum(jax.lax.broadcasted_iota(jnp.int32, lane_shape, d)
-                   for d in range(len(lane_shape)))  # varies along every axis
-        zero_i = jnp.minimum(ramp, 0)
-    else:
-        zero_i = jnp.zeros(lane_shape, jnp.int32)
-    one_i = zero_i + 1
+    zero_i = jnp.zeros(lane_shape, jnp.int32)
+    one_i = jnp.ones(lane_shape, jnp.int32)
 
     if reseed:
         idx0 = jnp.broadcast_to(jnp.asarray(lane_index, jnp.int32),
                                 lane_shape)
     else:
-        # Lane-shaped even though unused: Mosaic cannot mix scalar and
-        # vector i32 operands in the loop carry's select chains.
         idx0 = zero_i
 
     if track_best:
@@ -159,8 +130,9 @@ def lm_loop(consts, lower, upper, opts: LMOptions,
     else:
         best0 = ()
 
-    # Boolean lane masks are carried as int32: Mosaic (Pallas TPU) cannot
-    # legalize vector<i1> loop carries, and the cast is free elsewhere.
+    # Boolean lane masks are carried as int32, so the seed-group and
+    # loop-exit reductions are integer max/min (the Triton lowering has no
+    # boolean any/all reductions).
     init = (tuple(xs0), tuple(e0), jt0, f0,
             jnp.full(lane_shape, opts.lam_init, dtype),
             jnp.full(lane_shape, 2.0, dtype),
@@ -172,17 +144,14 @@ def lm_loop(consts, lower, upper, opts: LMOptions,
             one_i,                             # pending: adopt x this iter
             best0,
             zero_i,                            # iters at first success
-            zero_i,                            # completed successful attempts
-            # Active-iteration probe: lane-shaped only when tracking (a
-            # scalar otherwise, so the kernel path's carry is unchanged).
-            zero_i if track_active else jnp.zeros((), jnp.int32))
+            zero_i)                            # completed successful attempts
 
     def cond(c):
-        return (c[8] < max_total_iters) & ~jnp.all(c[6] > 0)
+        return (c[8] < max_total_iters) & (jnp.min(c[6]) == 0)
 
     def body(c):
         (xs_t, e_t, jt_flat, f, lam, nu, stopped_i, success_i, it,
-         cur_idx, it_lane, pending_i, best, succ_it, succ_cnt, act) = c
+         cur_idx, it_lane, pending_i, best, succ_it, succ_cnt) = c
         stopped = stopped_i > 0
         success = success_i > 0
         pending = pending_i > 0
@@ -265,8 +234,6 @@ def lm_loop(consts, lower, upper, opts: LMOptions,
         newly_stuck = lam_next >= opts.lam_max
 
         run = ~stopped
-        if track_active:
-            act = act + run.astype(jnp.int32)
         succ_now = newly_f
         if opts.df_is_success:
             succ_now = succ_now | newly_df
@@ -274,12 +241,7 @@ def lm_loop(consts, lower, upper, opts: LMOptions,
             succ_now = succ_now | newly_dx
         first_succ = run & succ_now & ~success
         success = success | (run & succ_now)
-        # Integer selects use full-size operands on both sides: Mosaic's
-        # relayout pass rejects replicated-scalar vs tiled-vector i32
-        # select_n operands ("Invalid relayout ... replicated in
-        # destination but not in source").
-        it_next = jnp.where(pending & run, jnp.ones_like(it_lane),
-                            it_lane + 1)
+        it_next = jnp.where(pending & run, 1, it_lane + 1)
         succ_it = jnp.where(first_succ, it_next, succ_it)
         attempt_over = (newly_f | newly_df | newly_dx | newly_stuck
                         | (it_next > opts.max_iters))
@@ -327,59 +289,22 @@ def lm_loop(consts, lower, upper, opts: LMOptions,
             # reference's cross-thread early-exit flag (lib.rs:269,382-384).
             # Winner = earliest success by iteration, ties broken by lowest
             # restart index (lane-local property -> batch-layout-invariant).
-            if group_size is not None and group_size != lane_shape[0]:
-                # Pose-packed sublane layout (group_axis must be 0): a pose
-                # occupies a contiguous run of group_size rows.
-                rows = lane_shape[0]
-                if GROUP_ANY == "slices":
-                    # Per-pack any via static sublane slices.
-                    segs = []
-                    for h in range(rows // group_size):
-                        seg = jnp.any(
-                            success[h * group_size:(h + 1) * group_size],
-                            axis=0, keepdims=True)
-                        segs.append(jnp.broadcast_to(
-                            seg, (group_size,) + lane_shape[1:]))
-                    pose_done = jnp.concatenate(segs, axis=0)
-                else:
-                    # Grouped "any" as a tiny block-diagonal matmul (an
-                    # (8, 8) x (8, P) dot), built from iota rather than a
-                    # numpy constant: Pallas kernels cannot capture array
-                    # consts.
-                    r_i = jax.lax.broadcasted_iota(jnp.int32, (rows, rows), 0)
-                    c_i = jax.lax.broadcasted_iota(jnp.int32, (rows, rows), 1)
-                    gmat = ((r_i // group_size) == (c_i // group_size)
-                            ).astype(dtype)
-                    pose_done = (gmat @ success.astype(dtype)) > 0.5
-                stopped = stopped | pose_done
-                pending_next = pending_next & ~pose_done
-            else:
-                pose_done = jnp.any(success, axis=group_axis, keepdims=True)
-                stopped = stopped | jnp.broadcast_to(pose_done, lane_shape)
-                pending_next = pending_next & ~pose_done
+            pose_done = jnp.max(success.astype(jnp.int32), axis=-1,
+                                keepdims=True) > 0
+            stopped = stopped | jnp.broadcast_to(pose_done, lane_shape)
+            pending_next = pending_next & ~pose_done
 
         if group_success_cap is not None:
             # Quality truncation-after-k: count completed successful
             # attempts per lane, reduce over the pose's lane group, and
             # freeze the pose at >= cap (config.quality_max_successes).
             succ_cnt = succ_cnt + (run & succ_now).astype(jnp.int32)
-            cnt = succ_cnt.astype(dtype)
-            if len(lane_shape) >= 2 and group_size is not None \
-                    and group_size != lane_shape[0]:
-                # Pose-packed sublane layout: group sums as the same
-                # block-diagonal iota matmul as the Speed freeze above.
-                rows = lane_shape[0]
-                r_i = jax.lax.broadcasted_iota(jnp.int32, (rows, rows), 0)
-                c_i = jax.lax.broadcasted_iota(jnp.int32, (rows, rows), 1)
-                gmat = ((r_i // group_size) == (c_i // group_size)
-                        ).astype(dtype)
-                pose_cnt = gmat @ cnt
-            elif len(lane_shape) >= 2:
-                pose_cnt = jnp.broadcast_to(
-                    jnp.sum(cnt, axis=group_axis, keepdims=True), lane_shape)
+            if len(lane_shape) >= 2:
+                pose_cnt = jnp.sum(succ_cnt, axis=-1, keepdims=True)
             else:
-                pose_cnt = cnt
-            capped = pose_cnt >= float(group_success_cap)
+                pose_cnt = succ_cnt
+            capped = jnp.broadcast_to(pose_cnt >= group_success_cap,
+                                      lane_shape)
             stopped = stopped | capped
             pending_next = pending_next & ~capped
 
@@ -387,7 +312,7 @@ def lm_loop(consts, lower, upper, opts: LMOptions,
                 lam_next, nu_next, stopped.astype(jnp.int32),
                 success.astype(jnp.int32), it + 1,
                 cur_idx_next, it_next, pending_next.astype(jnp.int32), best,
-                succ_it, succ_cnt, act)
+                succ_it, succ_cnt)
 
     if unroll > 1:
         body1 = body
@@ -398,15 +323,13 @@ def lm_loop(consts, lower, upper, opts: LMOptions,
             return c
 
     out = jax.lax.while_loop(cond, body, init)
-    act_out = out[15] if track_active else None
     if track_best:
         bx, bd, bf, bi = out[12]
         return LoopOut(xs=bx, f=bf, success=jnp.isfinite(bd), iters=out[8],
-                       restart_index=bi, succ_iters=out[13],
-                       active_iters=act_out)
+                       restart_index=bi, succ_iters=out[13])
     return LoopOut(xs=out[0], f=out[3], success=out[7] > 0, iters=out[8],
                    restart_index=out[9] if reseed else None,
-                   succ_iters=out[13], active_iters=act_out)
+                   succ_iters=out[13])
 
 
 def solve_soa(consts, lower, upper, opts: LMOptions,
@@ -452,7 +375,7 @@ def solve_soa(consts, lower, upper, opts: LMOptions,
     out = lm_loop(consts, lower, upper, opts, xs0, tgtm, tgtt, eem, eev,
                   weight6, seed_lookup=seed_lookup, lane_index=lane_index,
                   total_restarts=total_restarts, s_lanes=s_lanes,
-                  success_stops_group=success_stops_group, group_axis=-1,
+                  success_stops_group=success_stops_group,
                   explore_full_budget=explore_full_budget, qx0=qx0,
                   group_success_cap=group_success_cap)
 

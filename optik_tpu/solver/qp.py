@@ -1,7 +1,7 @@
 """Batched dense QP solver: fixed-iteration ADMM (OSQP-style) with polish.
 
 Replaces the reference's Clarabel interior-point dependency
-(kylc/optik lib.rs:216-228) with a TPU-native solver: every problem instance
+(kylc/optik lib.rs:216-228) with a batched solver: every problem instance
 is a lane, iterations are lockstep matvecs with *no* data-dependent control
 flow, and the one factorization per instance is a small batched Cholesky.
 Interior-point methods branch on line searches and converge in few-but-heavy

@@ -2,15 +2,15 @@
 
 SURVEY §5 asks for "per-kernel roofline accounting" in place of the
 reference's criterion micro-benches (kylc/optik crates/optik/benches/
-bench.rs).  The solver is VPU-bound element-wise math (the SoA path tiles
-the lane axis perfectly and never touches the MXU — see ops/soa.py), so
-utilization is model FLOPs against the VPU's f32 peak:
+bench.rs).  The solver is element-wise float32 math on lane-shaped arrays
+(the SoA path, ops/soa.py) with no matrix products, so its compute roof is
+the card's float32 peak outside the tensor cores:
 
-    util = lane_iters * flops_per_lane_iter / seconds / vpu_peak
+    util = lane_iters * flops_per_lane_iter / seconds / f32_peak
 
 * ``lane_iters`` comes from the solve itself (IKResult.lane_iters, counted
   on device: every executed loop iteration of every lane, including lanes
-  frozen by Speed-mode pose freezing — frozen lanes still occupy VPU issue
+  frozen by Speed-mode pose freezing — frozen lanes still occupy issue
   slots, their selects just keep the old state).
 * ``flops_per_lane_iter`` is measured, not hand-counted: XLA's
   HloCostAnalysis counts a ``while`` body exactly ONCE per call site, so
@@ -18,50 +18,35 @@ utilization is model FLOPs against the VPU's f32 peak:
   B*S lanes plus the one-time setup/selection (seed-table generation,
   per-pose argmin) — a few percent of the body at realistic lane counts.
   Dividing by the lane count gives FLOPs per lane-iteration with that
-  one-time work amortized in, which is the honest numerator for "useful
-  work the engine asked the VPU for".  The analysis runs on the
-  UN-optimized module: post-optimization HLO duplicates producers into
-  every consumer fusion (measured 14x on the solver body for CPU), which
-  counts compiler-materialized recomputation, not algorithmic work.
-  (Calibration: the count matches a hand count of the LM body —
-  fused residual+Jacobian ~2.1 kFLOP/lane + J J^T build / 6x6 Cholesky /
-  step / gain-ratio ~0.9 kFLOP/lane for the 7-DoF Panda.)
+  one-time work amortized in.  The analysis runs on the UN-optimized
+  module: post-optimization HLO duplicates producers into every consumer
+  fusion, which counts compiler-materialized recomputation, not
+  algorithmic work.  (Calibration: the count matches a hand count of the
+  LM body — fused residual+Jacobian ~2.1 kFLOP/lane + J J^T build / 6x6
+  Cholesky / step / gain-ratio ~0.9 kFLOP/lane for the 7-DoF Panda.)
 * Transcendentals (sin/cos/sqrt/atan2 in the Rodrigues/log-map chain) are
-  reported separately — XLA does not fold them into ``flops``, and on the
-  VPU they cost multiple ALU passes each, so achieved-FLOPs understates
-  occupancy; utilization here is therefore a LOWER bound.
+  reported separately — XLA does not fold them into ``flops``, and they
+  cost several instructions each, so utilization here is a LOWER bound.
 """
 
 from __future__ import annotations
 
-from typing import Optional
-
-# Public TPU architecture: each TensorCore pairs one (8, 128) VPU with 4
-# independent ALUs per lane position (8*128*4 = 4096 ops/cycle) against 4
-# 128x128 MXUs (4 * 128*128 * 2 = 131072 FLOPs/cycle), a fixed per-core
-# ratio of 1/32 that cancels the clock.  The VPU f32 peak is therefore each
-# generation's published per-chip bf16 MXU peak / 32.  ALUs are counted at
-# 1 op/cycle; a pure-FMA workload could reach ~2x this, so utilization
-# computed against it is conservative for FMA-dense code.
-_MXU_BF16_PEAK = {
-    # device_kind substring -> bf16 MXU peak FLOP/s per chip
-    "v5 lite": 197e12,   # v5e: 1 core
-    "v5e": 197e12,
-    "v5p": 459e12,       # 2 cores
-    "v6 lite": 918e12,   # trillium
-    "v6e": 918e12,
-    "v4": 275e12,        # 2 cores
-    "v5": 459e12,        # plain "v5" only after the lite/p checks
+# Published peaks per device_kind (NVIDIA H100 data sheet, SXM part, at the
+# full 700 W power limit): float32 outside the tensor cores, and HBM
+# bandwidth.  A device kind not listed here is an error, not a default.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {"f32_flops": 67e12, "hbm_bytes": 3.35e12},
 }
 
 
-def vpu_peak_flops(device_kind: str) -> Optional[float]:
-    """Estimated VPU f32 peak FLOP/s for a jax device_kind, or None."""
-    kind = device_kind.lower()
-    for key, mxu_peak in _MXU_BF16_PEAK.items():
-        if key in kind:
-            return mxu_peak / 32.0
-    return None
+def device_peaks(device_kind: str) -> dict:
+    """Published peaks for a jax ``device_kind``; raises for unknown kinds."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no published peaks for device kind {device_kind!r}; add it to "
+            f"optik_tpu/utils/roofline.PEAKS with its source") from None
 
 
 def lane_iter_cost(spec, cfg, dtype=None, b: int = 64) -> dict:
@@ -80,10 +65,8 @@ def lane_iter_cost(spec, cfg, dtype=None, b: int = 64) -> dict:
     dtype = dtype or jnp.float32
     s = min(cfg.seed_batch, cfg.total_restarts)
     cpu = jax.devices("cpu")[0]
-    with jax.default_device(cpu), jax.default_matmul_precision("float32"):
-        # The precision decorator hides the jit object; __wrapped__ is the
-        # jitted solve_batch, which exposes .lower for cost analysis.
-        fn = ik_mod.build_batch_solver(spec, cfg, dtype).__wrapped__
+    with jax.default_device(cpu):
+        fn = ik_mod.build_batch_solver(spec, cfg, dtype)
         args = (
             jax.ShapeDtypeStruct((b, 3, 3), dtype),
             jax.ShapeDtypeStruct((b, 3), dtype),
@@ -100,121 +83,9 @@ def lane_iter_cost(spec, cfg, dtype=None, b: int = 64) -> dict:
 
 def utilization(lane_iters: float, seconds: float, flops_per_iter: float,
                 device_kind: str) -> dict:
-    """Achieved model FLOP/s and VPU utilization for a timed solve."""
+    """Achieved model FLOP/s and its share of the float32 peak."""
     achieved = lane_iters * flops_per_iter / max(seconds, 1e-12)
-    peak = vpu_peak_flops(device_kind)
-    out = {"model_gflops_per_s": achieved / 1e9}
-    if peak:
-        out["vpu_peak_gflops_est"] = peak / 1e9
-        out["vpu_util"] = achieved / peak
-    return out
-
-
-# Estimated VPU issue slots per element for each primitive class.  The VPU
-# ALUs execute simple f32/i32 lanes ops in one pass; divides, roots and any
-# leftover libm-style transcendentals expand to multi-pass sequences.  These
-# weights are order-of-magnitude ESTIMATES for public TPU generations (no
-# per-op latency tables are published); the speed-of-light bound built from
-# them is explicitly a model, not a measurement — its role is to bound how
-# much headroom *could* remain, with the weights stated in the artifact.
-_VPU_PASSES = {
-    "div": 4.0, "sqrt": 4.0, "rsqrt": 2.0, "pow": 10.0,
-    "sin": 12.0, "cos": 12.0, "atan2": 25.0, "tan": 20.0,
-    "exp": 8.0, "log": 8.0, "tanh": 10.0, "logistic": 10.0,
-    "rem": 4.0, "erf": 12.0, "erf_inv": 16.0,
-    "integer_pow": 2.0,
-}
-
-# Primitives that do no per-element ALU work (layout/metadata only).
-_FREE = {
-    "broadcast_in_dim", "reshape", "squeeze", "transpose", "copy",
-    "convert_element_type", "bitcast_convert_type", "slice",
-    "dynamic_slice", "dynamic_update_slice", "concatenate", "iota",
-    "gather", "scatter", "rev", "pad",
-}
-
-
-def op_histogram(spec, cfg, dtype=None, b: int = 64,
-                 kernel_math: bool = True) -> dict:
-    """Per-lane-iteration VPU op counts of the LM loop, by primitive.
-
-    Walks the solver's jaxpr (each ``while`` body counted ONCE, like the
-    pre-optimization cost analysis in :func:`lane_iter_cost`) and
-    accumulates output-element counts per primitive.  With ``kernel_math``
-    the body is traced in kernel math mode (ops/soa.approx_atan2: atan2 and
-    sin/cos as polynomials) — the instruction mix the Pallas kernel
-    actually ships, leaving sqrt/rsqrt/div as the only multi-pass ops.
-
-    Returns {"per_lane_iter": {prim: ops}, "weighted_ops": N,
-    "flops_like": N, "lanes": b*s} — ``weighted_ops`` applies the
-    ``_VPU_PASSES`` estimates, the numerator of the speed-of-light bound.
-    """
-    import jax
-    import jax.numpy as jnp
-
-    from ..ops import soa
-    from ..solver import ik as ik_mod
-
-    dtype = dtype or jnp.float32
-    s = min(cfg.seed_batch, cfg.total_restarts)
-    cpu = jax.devices("cpu")[0]
-    args = (
-        jax.ShapeDtypeStruct((b, 3, 3), dtype),
-        jax.ShapeDtypeStruct((b, 3), dtype),
-        jax.ShapeDtypeStruct((b, spec.num_positions), dtype),
-    )
-    import contextlib
-
-    ctx = soa.approx_atan2() if kernel_math else contextlib.nullcontext()
-    with jax.default_device(cpu), ctx:
-        fn = ik_mod.build_batch_solver(spec, cfg, dtype).__wrapped__
-        jaxpr = jax.make_jaxpr(fn)(*args)
-
-    import numpy as _np
-
-    counts: dict = {}
-
-    def walk(jx):
-        for eqn in jx.eqns:
-            subs = [eqn.params[k] for k in
-                    ("jaxpr", "body_jaxpr", "cond_jaxpr", "call_jaxpr")
-                    if k in eqn.params]
-            subs.extend(eqn.params.get("branches", ()))
-            if subs:
-                for sub in subs:
-                    walk(sub.jaxpr if hasattr(sub, "jaxpr") else sub)
-                continue
-            name = eqn.primitive.name
-            if name in _FREE:
-                continue
-            n = sum(int(_np.prod(v.aval.shape)) for v in eqn.outvars
-                    if hasattr(v.aval, "shape"))
-            counts[name] = counts.get(name, 0) + n
-
-    walk(jaxpr.jaxpr)
-    lanes = float(b * s)
-    per_lane = {k: v / lanes for k, v in sorted(
-        counts.items(), key=lambda kv: -kv[1])}
-    weighted = sum(v * _VPU_PASSES.get(k, 1.0) for k, v in per_lane.items())
-    return {"per_lane_iter": per_lane, "weighted_ops": weighted,
-            "flops_like": sum(per_lane.values()), "lanes": lanes}
-
-
-def speed_of_light(weighted_ops_per_lane_iter: float,
-                   lane_iters_per_solve: float,
-                   device_kind: str) -> Optional[dict]:
-    """Model speed-of-light solve rate for this chip, and what it assumes.
-
-    SoL = VPU ops/s / (weighted ops per lane-iteration x lane-iterations
-    per solve).  Assumes perfect ALU packing (the 1-op/cycle convention of
-    :func:`vpu_peak_flops`; FMA-dense stretches could double it), zero
-    load/store stalls, and the _VPU_PASSES expansion estimates.  A solver
-    at >= ~50% of this bound has < 2x headroom under the model.
-    """
-    peak = vpu_peak_flops(device_kind)
-    if not peak or weighted_ops_per_lane_iter <= 0:
-        return None
-    per_solve = weighted_ops_per_lane_iter * lane_iters_per_solve
-    return {"sol_solves_per_s": peak / per_solve,
-            "weighted_ops_per_lane_iter": weighted_ops_per_lane_iter,
-            "lane_iters_per_solve": lane_iters_per_solve}
+    peak = device_peaks(device_kind)["f32_flops"]
+    return {"model_gflops_per_s": achieved / 1e9,
+            "f32_peak_gflops": peak / 1e9,
+            "f32_util": achieved / peak}

@@ -9,6 +9,8 @@ from optik_tpu import Robot, SolverConfig
 from optik_tpu.models import asset_path
 from optik_tpu.utils import roofline
 
+H100 = "NVIDIA H100 80GB HBM3"
+
 
 @pytest.fixture(scope="module")
 def robot():
@@ -31,15 +33,18 @@ def test_lane_iter_cost(robot):
 
 
 def test_vpu_peak_lookup():
-    assert roofline.vpu_peak_flops("TPU v5 lite") == pytest.approx(197e12 / 32)
-    assert roofline.vpu_peak_flops("TPU v5p") == pytest.approx(459e12 / 32)
-    assert roofline.vpu_peak_flops("TPU v4") == pytest.approx(275e12 / 32)
-    assert roofline.vpu_peak_flops("cpu") is None
+    """The peak table is keyed by device_kind; unknown kinds raise."""
+    peaks = roofline.device_peaks(H100)
+    assert peaks["f32_flops"] == pytest.approx(67e12)
+    assert peaks["hbm_bytes"] == pytest.approx(3.35e12)
+    for kind in ("cpu", "NVIDIA A100-SXM4-80GB", ""):
+        with pytest.raises(ValueError, match="no published peaks"):
+            roofline.device_peaks(kind)
 
 
 def test_utilization_shape(robot):
-    out = roofline.utilization(1e6, 0.01, 3000.0, "TPU v5 lite")
+    out = roofline.utilization(1e6, 0.01, 3000.0, H100)
     assert out["model_gflops_per_s"] == pytest.approx(3e11 / 1e9)
-    assert 0 < out["vpu_util"] < 1
-    out_cpu = roofline.utilization(1e6, 0.01, 3000.0, "cpu")
-    assert "vpu_util" not in out_cpu
+    assert out["f32_util"] == pytest.approx(3e11 / 67e12)
+    with pytest.raises(ValueError):
+        roofline.utilization(1e6, 0.01, 3000.0, "cpu")

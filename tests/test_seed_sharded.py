@@ -1,8 +1,8 @@
 """Kernel-speed seed-axis sharding (parallel/mesh.build_seed_sharded_solver).
 
-SURVEY §2's "seeds along chips" architecture at Pallas-kernel speed: chip d
-runs the full kernel on restart-stream slice [d*R/n, (d+1)*R/n) and one
-argmin-reduce over the 'seed' mesh axis merges winners — the TPU analog of
+SURVEY §2's "seeds along devices" architecture on the Pallas kernel: device
+d runs the full kernel on restart-stream slice [d*R/n, (d+1)*R/n) and one
+argmin-reduce over the 'seed' mesh axis merges winners — the mesh analog of
 the reference's work-stealing restarts scaling across all cores
 (kylc/optik lib.rs:298-301).  Exercised here on the 8-fake-device CPU mesh
 with interpreter-mode kernels (conftest).

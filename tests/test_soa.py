@@ -1,7 +1,7 @@
 """SoA (component) compute path vs the array reference path.
 
 The SoA path (ops/soa.py + solver/lm_soa.py) is the production fast path on
-TPU; the array path (ops/kinematics.py + solver/lm.py) is the readable
+accelerators; the array path (ops/kinematics.py + solver/lm.py) is the readable
 reference.  They must agree to float tolerance on every intermediate the
 solver consumes.
 """

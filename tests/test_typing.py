@@ -43,7 +43,7 @@ def test_public_robot_annotations_evaluate():
 def test_config_annotations_evaluate():
     hints = typing.get_type_hints(config_mod.SolverConfig)
     # Every reference SolverConfig field is present and annotated
-    # (config.rs:22-50 + the TPU budget extensions).
+    # (config.rs:22-50 + the batch-budget extensions).
     for field in ("solution_mode", "max_time", "max_restarts", "tol_f",
                   "tol_df", "tol_dx", "linear_weight", "angular_weight",
                   "max_iters", "seed_batch", "rng_seed"):
