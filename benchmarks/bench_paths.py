@@ -3,13 +3,16 @@
 
 For the two IK configurations of chip_smoke.py (Speed: 64 restarts, 8 seed
 lanes, 32 iterations, B = 131072; Quality: 256 restarts, 64 seed lanes, 48
-iterations, B = 4096) this forces ``ik_batch`` onto each path in turn —
-the plain XLA loop ("xla"), the single-shot Triton kernel ("kernel") and,
-for Speed, the cascade over the kernel ("cascade") — and reports per path:
+iterations, B = 4096) this builds each solver that ``Robot.ik_batch`` can
+route to and times it on the same inputs — the plain XLA loop ("xla",
+solver/ik.build_batch_solver), the single-shot Triton kernel ("kernel",
+lm_kernel.build_kernel_solver) and, for Speed, the cascade over the kernel
+("cascade", cascade.build_default_solver) — and reports per path:
 solves/s, found count, lane-iterations per solve, compile seconds and peak
-device memory.  Kernel paths run at every ``--lanes`` (lanes per block) and
-``--unroll`` value given.  Compilation is excluded from the timings and
-every timing ends in ``block_until_ready``.
+device memory.  Kernel paths run at every ``--lanes`` (lanes per block)
+given; the single-shot kernel also at every ``--unroll`` value.  Both
+batches are block multiples, so no padding is timed.  Compilation is
+excluded from the timings and every timing ends in ``block_until_ready``.
 
     python benchmarks/bench_paths.py [--modes speed,quality]
         [--lanes 64,128,256] [--unroll 1] [--reps 5]
@@ -55,9 +58,10 @@ def main():
         raise SystemExit(f"bench_paths: no GPU, JAX found {jax.devices()}")
 
     from optik_tpu import Robot, SolverConfig
-    from optik_tpu import robot as robot_mod
     from optik_tpu.models import asset_path
     from optik_tpu.ops.pallas import lm_kernel
+    from optik_tpu.solver import cascade
+    from optik_tpu.solver import ik as ik_mod
     from optik_tpu.utils.cache import enable_compile_cache
 
     enable_compile_cache()
@@ -77,44 +81,43 @@ def main():
         sink.write(line + "\n")
         sink.flush()
 
+    robot = Robot.from_urdf_file(asset_path("panda.urdf"), "panda_link0",
+                                 "panda_hand_tcp", dtype=jnp.float32)
+    spec = robot.spec
+    lo, hi = robot.joint_limits()
     rng = np.random.default_rng(0)
     for mode in args.modes.split(","):
         kw, b = CONFIGS[mode]
         cfg = SolverConfig.create(mode, **kw)
-        probe = Robot.from_urdf_file(asset_path("panda.urdf"), "panda_link0",
-                                     "panda_hand_tcp", dtype=jnp.float32)
-        lo, hi = probe.joint_limits()
-        tr, tt = probe.fk_batch(rng.uniform(lo, hi, size=(b, 7)))
+        tr, tt = robot.fk_batch(rng.uniform(lo, hi, size=(b, 7)))
         x0 = jnp.asarray(rng.uniform(lo, hi, size=(b, 7)), jnp.float32)
         jax.block_until_ready((tr, tt, x0))
+        s = lm_kernel.seed_lanes(cfg)
         runs = []
         for path in args.paths.split(","):
+            if path == "xla":
+                runs.append((path, None, None, ik_mod.build_batch_solver(
+                    spec, cfg, jnp.float32)))
+                continue
             if path == "cascade" and mode != "speed":
                 continue
-            if path == "xla":
-                runs.append((path, None, None))
-            else:
-                runs += [(path, int(ln), int(u))
-                         for ln in args.lanes.split(",")
-                         for u in args.unroll.split(",")]
-        for path, lanes, unroll in runs:
-            robot_mod._GPU_ROUTE[cfg.solution_mode] = path
-            if lanes:
-                lm_kernel.DEFAULT_LANES = lanes
-                lm_kernel.DEFAULT_UNROLL = unroll
-            robot = Robot(probe.spec, dtype=jnp.float32)
-
-            def solve():
-                return robot.ik_batch(cfg, tr, tt, x0, validate_seeds=False,
-                                      rescue_overflow=False)
-
+            for ln in map(int, args.lanes.split(",")):
+                p_blk = lm_kernel.block_poses(s, ln)
+                if path == "cascade":
+                    runs.append((path, ln, None, cascade.build_default_solver(
+                        spec, cfg, p_blk=p_blk)[0]))
+                    continue
+                runs += [(path, ln, u, lm_kernel.build_kernel_solver(
+                    spec, cfg, p_blk=p_blk, unroll=u))
+                    for u in map(int, args.unroll.split(","))]
+        for path, lanes, unroll, fn in runs:
             t0 = time.perf_counter()
-            res = jax.block_until_ready(solve())
+            res = jax.block_until_ready(fn(tr, tt, x0))
             first = time.perf_counter() - t0
             ts = []
             for _ in range(args.reps):
                 t0 = time.perf_counter()
-                res = jax.block_until_ready(solve())
+                res = jax.block_until_ready(fn(tr, tt, x0))
                 ts.append(time.perf_counter() - t0)
             med = float(np.median(ts))
             stats = dev.memory_stats() or {}
